@@ -86,11 +86,15 @@ def _import_bench():
 
 def test_bench_mesh_smoke(monkeypatch, capsys):
     """`bench.py --mesh N` must route through render_sharded so the
-    multi-chip scaling table (BASELINE.json:2) is one command away the day
-    hardware exists (VERDICT r2 item 7).  Exercised on the 8-CPU mesh."""
+    multi-card scaling table (BASELINE.json:2) is one command away, and its
+    line must name the device it ran on.  Exercised on the 8-CPU mesh."""
     import sys
 
+    from tpurt.utils import device
+
     bench = _import_bench()
+    # keep the suite off the persistent compile cache bench enables
+    monkeypatch.setattr(device, "enable_compile_cache", lambda: None)
     monkeypatch.setattr(sys, "argv", [
         "bench.py", "--config", "2", "--res", "16x16", "--mesh", "2",
         "--iters", "1", "--warmup", "1"])
@@ -98,6 +102,7 @@ def test_bench_mesh_smoke(monkeypatch, capsys):
     out = capsys.readouterr().out.strip().splitlines()[-1]
     j = json.loads(out)
     assert j["mesh"] == 2
+    assert j["device"]["platform"] == "cpu" and j["device"]["count"] == 8
     # value rounds to 2 decimals — a tiny CPU frame can legitimately round
     # to 0.0 Mrays/s; the meaningful invariants are the counts and timing
     assert j["ms_per_frame"] > 0

@@ -196,7 +196,7 @@ def test_render_resumable_crash_and_resume(tmp_path):
     with open(out + "/manifest.json") as f:
         assert len(_json.load(f)["chunks"]) == 2
     img = render_resumable(scene, cfg, out, chunk_rows=8)
-    # chunked slabs re-tile the megakernel grid: reassociation-level diffs
+    # chunked slabs re-tile the phase-1 pixel tiles: reassociation-level diffs
     np.testing.assert_allclose(img, direct, atol=5e-6)
 
 
@@ -307,10 +307,10 @@ def test_ring_train_step_reduces_loss():
 
 
 def test_sharded_grads_with_segsum_and_remat(monkeypatch):
-    """The r5 backward machinery (Pallas sorted-segsum vertex accumulation
-    + chunk-body remat) must compose with shard_map tile parallelism: on
-    real multi-chip hardware this is the production fwdbwd graph, so the
-    combination is pinned on the 8-device CPU mesh (forced flags — the
+    """The backward machinery (one scatter-add vertex accumulation +
+    compacted-shading chunk remat) must compose with shard_map tile
+    parallelism: on several cards this is the production fwdbwd graph, so
+    the combination is pinned on the 8-device CPU mesh (forced flags — the
     test scenes are below the auto gates)."""
     import jax
     import jax.numpy as jnp
@@ -320,7 +320,7 @@ def test_sharded_grads_with_segsum_and_remat(monkeypatch):
     from tpurt.scene import configs
     from tpurt.shading import deferred as D
 
-    monkeypatch.setattr(D, "_VTAB_SEGSUM_ENV", "1")
+    monkeypatch.setattr(D, "_PACK_DIRECT_ENV", "1")  # the vtab scatter
     monkeypatch.setattr(D, "SHADE_COMPACT", True)
     monkeypatch.setattr(D, "SHADE_COMPACT_MIN", 1)
     scene, cfg = configs.config4_bunny(32, 32, subdiv=3)

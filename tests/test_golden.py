@@ -39,13 +39,13 @@ def test_golden(name):
     assert bad.mean() < 1e-3, f"{name}: {bad.sum()} pixels differ (max {diff.max():.4f})"
 
 
-# kernel paths against the SAME goldens (kernel-vs-oracle parity is ~2e-4,
-# far inside the 8-bit PNG tolerance): a Pallas/Mosaic-side image regression
-# is caught here even if the oracle stays correct.  VERDICT r1 weak #7.
+# fast paths against the SAME goldens (path-vs-oracle parity is ~2e-4,
+# far inside the 8-bit PNG tolerance): a fast-path image regression is
+# caught here even if the oracle stays correct.
 KERNEL_PATHS = {
-    "config1": "auto",      # phase-1 megakernel
-    "config2": "auto",      # phase-1 megakernel
-    "config3": "auto",      # phase-1 megakernel
+    "config1": "auto",      # phase-1 path
+    "config2": "auto",      # phase-1 path
+    "config3": "auto",      # phase-1 path
     "config4": "bvh",       # cluster traversal + deferred shading
     "config5": "bvh",       # cluster traversal + textures
 }

@@ -238,38 +238,9 @@ def test_segsum_flag_grads_match_naive(monkeypatch):
                                    atol=1e-5 * max(1.0, np.abs(am).max()))
 
 
-def test_vtab_scatter_parts_grads_identical(monkeypatch):
-    """The range-partitioned vertex-table scatter (TPURT_VTAB_SCATTER_PARTS,
-    design.md item 26 note) must produce BIT-identical gradients to the
-    single scatter: every row's updates arrive in the same stream order,
-    partitions only add exact 0.0 at clipped rows."""
-    import numpy as np
-
-    from tpurt.render import prepare, render_and_grad
-    from tpurt.scene import configs
-    from tpurt.shading import deferred as D
-
-    scene, cfg = configs.config4_bunny(24, 24, subdiv=3)
-    plan = prepare(scene, cfg, accel="bvh")
-
-    def grads():
-        (_, _), g = render_and_grad(
-            scene, lambda im: jnp.sum(im ** 2), cfg, plan=plan)
-        return np.asarray(g.vertices), np.asarray(g.vnormals)
-
-    monkeypatch.setattr(D, "_VTAB_PARTS_ENV", "1")
-    monkeypatch.setattr(D, "_PACK_DIRECT_ENV", "1")  # force the vtab path
-    monkeypatch.setattr(D, "_VTAB_SEGSUM_ENV", "0")
-    gv1, gn1 = grads()
-    monkeypatch.setattr(D, "_VTAB_PARTS_ENV", "2")
-    gv2, gn2 = grads()
-    np.testing.assert_array_equal(gv1, gv2)
-    np.testing.assert_array_equal(gn1, gn2)
-
-
 def test_shade_remat_grads_allclose(monkeypatch):
-    """TPURT_SHADE_REMAT (jax.checkpoint on the shading body — the r5
-    residual-vs-recompute win) must leave gradients allclose on BOTH the
+    """TPURT_SHADE_REMAT (jax.checkpoint on the shading body — the
+    residual-vs-recompute trade) must leave gradients allclose on BOTH the
     compacted and plain paths: remat is mathematically the identity, only
     refusion rounding may differ."""
     import numpy as np
@@ -299,34 +270,3 @@ def test_shade_remat_grads_allclose(monkeypatch):
                 assert np.isfinite(b).all()
                 np.testing.assert_allclose(
                     a, b, rtol=1e-5, atol=1e-6 * max(1.0, np.abs(a).max()))
-
-
-def test_vtab_segsum_grads_allclose(monkeypatch):
-    """The Pallas sorted-segsum vertex-table accumulation
-    (TPURT_VTAB_SEGSUM, tpurt/kernels/segsum.py) must match the serial
-    scatter to f32 accumulation-order tolerance: every product is exact
-    (bf16 one-hot × exact 3-term bf16 split), only the summation order
-    differs."""
-    import numpy as np
-
-    from tpurt.render import prepare, render_and_grad
-    from tpurt.scene import configs
-    from tpurt.shading import deferred as D
-
-    scene, cfg = configs.config4_bunny(24, 24, subdiv=3)
-    plan = prepare(scene, cfg, accel="bvh")
-
-    def grads():
-        (_, _), g = render_and_grad(
-            scene, lambda im: jnp.sum(im ** 2), cfg, plan=plan)
-        return np.asarray(g.vertices), np.asarray(g.vnormals)
-
-    monkeypatch.setattr(D, "_PACK_DIRECT_ENV", "1")  # force the vtab path
-    monkeypatch.setattr(D, "_VTAB_SEGSUM_ENV", "0")
-    gv1, gn1 = grads()
-    monkeypatch.setattr(D, "_VTAB_SEGSUM_ENV", "1")
-    gv2, gn2 = grads()
-    for a, b in ((gv1, gv2), (gn1, gn2)):
-        assert np.isfinite(b).all()
-        np.testing.assert_allclose(
-            a, b, rtol=1e-5, atol=1e-6 * max(1.0, np.abs(a).max()))

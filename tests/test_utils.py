@@ -3,6 +3,7 @@ import io
 import os
 
 import numpy as np
+import pytest
 
 from tpurt.scene.obj import load_obj, scene_from_obj
 from tpurt.utils import load_png, save_png, save_pytree, load_pytree
@@ -59,6 +60,64 @@ def test_png_roundtrip(tmp_path):
     back = load_png(p)
     assert back.shape == (8, 10, 3)
     np.testing.assert_allclose(back, img, atol=1 / 255 + 1e-6)
+
+
+def _png_with_filter(path, arr, ftype):
+    """Hand-encode an 8-bit RGB PNG whose every row uses filter `ftype`."""
+    import struct
+    import zlib
+
+    h, w, _ = arr.shape
+    bpp, stride = 3, w * 3
+    raw = arr.reshape(h, stride).astype(np.int32)
+    out = []
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        cur = raw[y]
+        left = np.concatenate([np.zeros(bpp, np.int32), cur[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
+        if ftype == 0:
+            pred = np.zeros(stride, np.int32)
+        elif ftype == 1:
+            pred = left
+        elif ftype == 2:
+            pred = prev
+        elif ftype == 3:
+            pred = (left + prev) // 2
+        else:
+            pc = left + prev - upleft
+            pa, pb, pcc = (np.abs(pc - left), np.abs(pc - prev),
+                           np.abs(pc - upleft))
+            pred = np.where((pa <= pb) & (pa <= pcc), left,
+                            np.where(pb <= pcc, prev, upleft))
+        out.append(bytes([ftype]) + ((cur - pred) & 0xFF).astype(
+            np.uint8).tobytes())
+        prev = cur
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(b"".join(out)))
+                + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("ftype", [0, 1, 2, 3, 4])
+def test_png_roundtrip_filters(tmp_path, ftype):
+    """The zlib PNG codec: save_png round-trips uint8 exactly, and
+    load_png undoes each of the five row filters other encoders use."""
+    arr = np.random.default_rng(ftype).integers(
+        0, 256, size=(6, 9, 3)).astype(np.uint8)
+    p = str(tmp_path / "s.png")
+    save_png(p, arr)
+    np.testing.assert_array_equal(load_png(p, np.uint8), arr)
+    q = str(tmp_path / f"f{ftype}.png")
+    _png_with_filter(q, arr, ftype)
+    np.testing.assert_array_equal(load_png(q, np.uint8), arr)
+    np.testing.assert_allclose(load_png(q), arr / 255.0, atol=1e-7)
 
 
 def test_checkpoint_roundtrip_scene(tmp_path):

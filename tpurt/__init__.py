@@ -1,4 +1,4 @@
-"""tpurt — TPU-native differentiable Whitted ray tracer.
+"""tpurt — a differentiable Whitted ray tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 reference `kotturtech/OpenCLRayTracer` (see SURVEY.md; the reference mount

@@ -2,15 +2,15 @@
 BVH on the C++ host; here the build is host-side numpy, with a C++ builder in
 tpurt/accel/native for large scenes).
 
-TPU-native traversal wants neither per-thread stacks nor pointer chasing
+The traversal wants neither per-thread stacks nor pointer chasing
 (SURVEY.md §7 "hard parts": divergent traversal on a vector machine).  The
 structure built here is therefore a TWO-LEVEL flattening of a median-split
 BVH: the tree is descended only until leaves hold ≤ LEAF triangles; each
-leaf becomes a CLUSTER stored as one contiguous padded block.  The kernel
-culls whole clusters against a ray tile with the same batched slab-test it
-uses for triangles (one (128-cluster × R-ray) VPU pass), then streams only
-surviving blocks from HBM and intersects them densely on the MXU — masked
-vector work instead of divergent scalar traversal.
+leaf becomes a CLUSTER stored as one contiguous padded block.  The
+traversal culls whole clusters against a ray tile with a batched interval
+slab test, then walks only the surviving blocks and intersects them
+densely — masked vector work instead of divergent scalar traversal
+(tpurt/kernels/traversal.py).
 
 Padding uses DUPLICATES of the cluster's first triangle: duplicates are
 harmless under closest-hit (ties resolve to the same triangle id) and under

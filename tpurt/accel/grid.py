@@ -1,7 +1,7 @@
 """Host-side uniform-grid build (SURVEY.md §2 row R5 — the reference's
 "BVH/grid" alternative acceleration structure; 3D-DDA traversal).
 
-The TPU traversal consumes the grid in the same block form as clusters
+The traversal consumes the grid in the same block form as clusters
 (tpurt/accel/clusters.py): each occupied cell's triangle list is padded to
 LEAF with duplicates and becomes a cluster block whose AABB is the cell box.
 A cell with more than LEAF triangles spills into multiple blocks.  This

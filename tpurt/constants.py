@@ -1,7 +1,7 @@
 """Parity-critical rendering constants — THE single source of truth.
 
 Every convention that decides whether two renderers `allclose` lives here, so
-the CPU oracle (`tpurt.ref`), the Pallas megakernels (`tpurt.kernels`) and any
+the oracle (`tpurt.ref`), the fast paths (`tpurt.kernels`) and any
 future backend can never drift from one another.  SURVEY.md §5 ("Config/flag
 system") mandates this module; SURVEY.md §0 mandates re-aligning these values
 to the OpenCL reference's constants if `/root/reference` ever becomes
@@ -50,7 +50,7 @@ CLAMP_HI = 1.0
 # -- defaults ----------------------------------------------------------------
 #: Default Whitted bounce depth (2 = primary + two reflection bounces).
 DEFAULT_MAX_DEPTH = 2
-#: Compute dtype for all geometry/shading math (f32: the VPU-native dtype;
+#: Compute dtype for all geometry/shading math (f32;
 #: bf16 loses too much precision for intersection tests).
 import jax.numpy as jnp
 

@@ -1,10 +1,10 @@
-"""Geometry kernels shared by the oracle and (as reference math) the Pallas
-megakernels: camera ray generation, Möller–Trumbore ray-triangle, ray-sphere.
+"""Geometry shared by the oracle and (as reference math) the fast paths:
+camera ray generation, Möller–Trumbore ray-triangle, ray-sphere.
 
-These are the TPU-native equivalents of SURVEY.md §2 rows R1–R3 (the
+These are the JAX equivalents of SURVEY.md §2 rows R1–R3 (the
 reference's OpenCL C device routines; reference unreadable this round —
 provenance BASELINE.json:5).  Everything is written array-wise over an
-arbitrary leading ray batch shape so the same code vectorizes on the VPU
+arbitrary leading ray batch shape so the same code vectorizes
 under jit and inside Pallas kernels.
 
 Broadcasting convention: ray args have shape (..., 3); primitive args have a

@@ -54,14 +54,14 @@ class RenderConfig:
     max_depth: int = 2        # Whitted bounces: 0 = primary rays only
     shadows: bool = True
     accel: str = "auto"       # "none" | "bvh" | "grid" | "auto"
-    wavefront: bool = True    # re-bin live rays between bounces (clustered
-    #                           path; False = trace all bounces in one kernel)
-    shadow_rebin: bool = True  # wavefront path: trace shadows in a separate
-    #                            pass over hit points re-binned by Morton
-    #                            code — compact 3D cells give thin light-
-    #                            origin cull cones (False = in-kernel
-    #                            shadows over the pixel/bounce tiling)
-    backend: str = "auto"     # "oracle" | "pallas" | "auto"
+    wavefront: bool = True    # re-bin live reflection rays between bounces
+    #                           (clustered path; False = trace them in their
+    #                           pixel tiles)
+    shadow_rebin: bool = True  # large clustered scenes: trace shadows over
+    #                            hit points re-binned by Morton code —
+    #                            compact 3D cells give thin light-origin
+    #                            cull cones (False = over the pixel tiles)
+    backend: str = "auto"     # "oracle" | "phase1" | "auto"
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)

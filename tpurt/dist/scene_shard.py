@@ -10,8 +10,8 @@ triangles are RENUMBERED into cluster-major order (renumber_by_clusters) so
 that a contiguous cluster range owns a contiguous global-id range, and
 device i then holds
 
-* 1/n of the cluster blocks — the streamed ``wtri_c/attr_c`` arrays
-  (~190 MB of ~250 MB packed at 1M tris),
+* 1/n of the cluster blocks — the packed ``forms/gid`` arrays the trace
+  kernel reads,
 * the matching 1/n slice of ``scene.triangles``/``tri_mat`` rows,
 * the matching 1/n slice of the (T, K) deferred-shading pack built from it,
 * and (v3) the ~1/n slice of the merged VERTEX table its triangles
@@ -21,8 +21,8 @@ device i then holds
 — only materials/lights/camera/spheres/textures stay replicated.
 
 Each bounce runs n ring steps: compact the arrived rays (live-first, Morton
-order — the wavefront re-bin applied to traveling rays, so the kernel's
-live-tile skip actually fires), trace against local clusters, fold the
+order — the wavefront re-bin applied to traveling rays, so dead tiles
+cull to empty survivor lists), trace against local clusters, fold the
 per-shard best into the carried (t, gid) record by the oracle's argmin-first
 tie rule, then ``lax.ppermute`` the ray packet onward.  Shadow rays make the
 same trip per light; occlusion is ``t_hit < dist``.  SHADING stays home:
@@ -34,9 +34,9 @@ replicated leaves (vertices, materials, lights, textures) get their psum
 from shard_map autodiff.
 
 Cost model: forward communication is 6 f32 + records per ray per step plus
-one rotation of the pack slice per shading depth over ICI — bandwidth-bound,
-overlappable; v2 optimizes for correctness + memory scaling and is validated
-bit-for-bit against replicated rendering of the renumbered scene on the CPU
+one rotation of the pack slice per shading depth over the device links —
+bandwidth-bound, overlappable; v2 optimizes for correctness + memory
+scaling and is validated bit-for-bit against replicated rendering of the renumbered scene on the CPU
 mesh (tests/test_dist.py).
 """
 from __future__ import annotations
@@ -206,8 +206,8 @@ def _ring_closest(packed, config, o, d, alive, axis, n, T_global, t0,
 
     Traveling rays are COMPACTED before each trace (live-first, Morton-of-
     origin + direction-octant order — the wavefront re-bin applied to the
-    ring) so the kernel's live-tile skip fires and the tiles the surviving
-    rays do occupy stay coherent; results scatter back by the inverse
+    ring) so dead tiles cull to empty survivor lists and the tiles the
+    surviving rays do occupy stay coherent; results scatter back by the inverse
     permutation before the merge, which is order-independent (min-fold
     with an exact gid tie rule), so compaction is exact.
 
@@ -217,12 +217,12 @@ def _ring_closest(packed, config, o, d, alive, axis, n, T_global, t0,
     scheduler hides each permute behind the other half's kernel (the
     ring-attention pipelining recipe).  Exact: the halves never interact
     until the final concat."""
-    from tpurt.kernels.traversal import RAYS, _bin_key, trace_bounce
+    from tpurt.kernels.traversal import RAYS, _bin_key, trace_closest
 
     N = o.shape[0]
     Tmax = packed.n_tris                      # local (padded) triangle count
-    lo = jnp.min(packed.aabb[0:3, : packed.n_clusters], axis=1)
-    hi = jnp.max(packed.aabb[3:6, : packed.n_clusters], axis=1)
+    lo = jnp.min(packed.box[:, 0:3], axis=0)
+    hi = jnp.max(packed.box[:, 4:7], axis=0)
     no_tmax = tmax is None
     if no_tmax:
         tmax = jnp.full((N,), C.T_NONE, jnp.float32)
@@ -241,7 +241,7 @@ def _ring_closest(packed, config, o, d, alive, axis, n, T_global, t0,
         o_c, d_c, al_c, bt, bid, tm = state
         ent, hitbox = _root_entry(lo, hi, o_c, d_c)
         keep = hitbox & (ent <= bt)
-        if packed.n_sph_blocks > 0:
+        if packed.n_spheres > 0:
             # resident spheres are REPLICATED, not part of any shard's
             # cluster box: fold them once by keeping every ray at step 0
             # (their hits then seed bt for the later shards' skip test)
@@ -250,18 +250,14 @@ def _ring_closest(packed, config, o, d, alive, axis, n, T_global, t0,
         if not no_tmax:
             al_eff = al_eff & ~(bt < tm)  # already provably occluded
         # live-first Morton compaction of the arrived rays (exact, see
-        # docstring); n_live lets the kernel skip dead tiles entirely
+        # docstring): dead tiles cull to empty survivor lists
         key = _bin_key(o_c, d_c, lo, hi, al_eff)
         prm = jnp.argsort(lax.stop_gradient(key))
         ipr = jnp.argsort(prm)
-        n_live = jnp.sum(al_eff.astype(jnp.int32))
-        # shadows=False: occlusion is traced by DEDICATED shadow rings (one
-        # per light) — the kernel's in-kernel per-light occlusion pass is
-        # the dominant cost and its result would be discarded here
-        ids_s, _occ, t_s, _ = trace_bounce(
-            packed, config, o_c[prm], d_c[prm], al_eff[prm], n_live,
-            shadows=False,
-        )
+        # occlusion is traced by DEDICATED shadow rings (one per light):
+        # closest hit within the travelling band end tm
+        ids_s, t_s, _ = trace_closest(
+            packed, o_c[prm], d_c[prm], al_eff[prm], tmax=tm[prm])
         ids_s = ids_s[ipr]
         t_s = t_s[ipr]
         # local → global ids: tris get + this device's shard offset (the
@@ -283,7 +279,7 @@ def _ring_closest(packed, config, o, d, alive, axis, n, T_global, t0,
     # traversal kernel is inlined once per half instead of n times — on
     # the interpret-mode CPU mesh (tests, dryrun_multichip) that cuts the
     # XLA graph ~n×, which is the difference between the driver's dryrun
-    # compiling in seconds vs timing out.  Both halves advance inside the
+    # compiling in seconds or timing out.  Both halves advance inside the
     # SAME body, so half A's ppermute still has no data dependence on half
     # B's trace and XLA's async collective scheduler keeps hiding each
     # permute behind the other half's kernel.

@@ -4,10 +4,10 @@ The reference is single-device / single-process with zero inter-device
 communication (SURVEY.md §2b [ARCHETYPE]); this module is the new build's
 first-class scaling layer (BASELINE.json:5): the image is split into
 horizontal row-slabs, one per device, via `shard_map`; the scene is
-replicated (scene-sharding for >HBM scenes is a v2 axis, SURVEY.md §5).
+replicated (dist/scene_shard.py shards scenes larger than one device).
 Gradients of replicated scene parameters are all-reduced by the `psum` XLA
-inserts when differentiating through shard_map — over ICI within a slice and
-DCN across hosts, with no NCCL/MPI anywhere.
+inserts when differentiating through shard_map; XLA hands the collectives
+to NCCL on the GPU.
 
 Multi-host: every host runs the same program on the same global mesh
 (jax.distributed.initialize() in the CLI); nothing here is host-count aware.
@@ -42,7 +42,7 @@ def render_rows(scene, config: RenderConfig, row0, nrows: int, plan=None):
 
     The single-device building block shared by every parallel layout; row0
     may be a traced value (device-dependent), nrows is static.  Dispatches
-    to the pallas megakernel, cluster traversal, or the oracle.
+    to the phase-1 path, cluster traversal, or the oracle.
     """
     from tpurt.render import _resolve_backend
 
@@ -53,14 +53,14 @@ def render_rows(scene, config: RenderConfig, row0, nrows: int, plan=None):
         return traversal.render_rows_clustered(
             scene, cap_depth(config, plan), plan.tri_ids, row0, nrows)
     backend = _resolve_backend(config, scene)
-    if backend == "pallas":
-        from tpurt.kernels import megakernel
+    if backend == "phase1":
+        from tpurt.kernels import phase1
 
-        return megakernel.render_rows_pallas(scene, config, row0, nrows)
+        return phase1.render_rows_phase1(scene, config, row0, nrows)
     if config.backend != "oracle":
-        from tpurt.kernels import megakernel
+        from tpurt.kernels import phase1
 
-        if not megakernel.supports(scene, config):
+        if not phase1.supports(scene, config):
             # a big/textured scene without a prepared plan would silently
             # brute-force O(pixels × primitives); that is never intended
             raise ValueError(
@@ -100,8 +100,7 @@ def render_sharded(scene, config: RenderConfig, mesh: Mesh, axis: str = TILE_AXI
     tests.  The row window lets resumable/chunked rendering
     (dist/failsafe.py) shard each chunk over the same mesh; `row0` is
     TRACED (every backend takes it as a device scalar) so chunks at
-    different offsets share one compilation — with 1–6 min remote Mosaic
-    compiles, a static row0 would charge a full recompile per chunk.
+    different offsets share one compilation.
     """
     n = mesh.shape[axis]
     total = config.height if nrows is None else nrows

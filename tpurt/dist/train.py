@@ -10,8 +10,6 @@ inserts for the replicated scene.
 """
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
 
@@ -78,29 +76,8 @@ def make_train_step(config: RenderConfig, mesh=None, axis: str = TILE_AXIS,
             img = render_sharded(scene, config, mesh, axis, plan=plan)
         return jnp.mean((img - target) ** 2)
 
-    fused_ok = mesh is None and (plan is None or plan.kind == "phase1")
-
     @jax.jit
     def step(scene, target, lr):
-        from tpurt.kernels import megakernel as MK
-
-        if fused_ok and MK.supports(scene, config):
-            # phase-1 fast path: loss + gradients in ONE Pallas pass (the
-            # loss cotangent is derived in-kernel — megakernel.
-            # l2_loss_and_grad; identical to the generic path up to
-            # summation order, scaled from sum to the mean loss here)
-            sq_sum, grads = MK.l2_loss_and_grad(scene, target, config)
-            scale = 1.0 / (config.height * config.width * 3)
-
-            def _scale(g):
-                ga = jnp.asarray(g)
-                if ga.dtype == jax.dtypes.float0 or not jnp.issubdtype(
-                        ga.dtype, jnp.floating):
-                    return g  # int-leaf cotangent: pass through
-                return ga * scale
-
-            grads = jax.tree_util.tree_map(_scale, grads)
-            return sgd_update(scene, grads, lr), sq_sum * scale
         loss, grads = jax.value_and_grad(loss_fn, allow_int=True)(scene, target)
         return sgd_update(scene, grads, lr), loss
 

@@ -1,19 +1,19 @@
-"""Differentiable scene packing for the Pallas megakernels.
+"""Differentiable scene packing for the phase-1 path (tpurt/kernels/phase1.py).
 
 The reference packs scene structs into flat GPU buffers on the C++ host
-(SURVEY.md §2 row R11, [ARCHETYPE]).  The TPU-native equivalent is a pure
+(SURVEY.md §2 row R11, [ARCHETYPE]).  The equivalent here is a pure
 jnp transform Scene → PackedScene that runs OUTSIDE the kernel but INSIDE
 jit/autodiff, so scene-parameter gradients (vertices, normals, materials,
 lights, camera — BASELINE.json:5) flow through the packing chain rule while
-the kernels stay gather-free.
+the tile program stays gather-free.
 
-Kernel data layout (rays ride in lanes; primitives in sublanes):
+Data layout (rays ride in columns; primitives in rows):
 
 * ``wtri`` (8, 6·T): per-triangle linear intersection forms, block-major.
   Triangle intersection is ``dot_general(wtri_block, X, contract dim0)``
   where ``X`` (8, R) stacks [ox,oy,oz,1, dx,dy,dz,0] per ray — a
-  Baldwin–Weber-style precomputed-transform test that runs on the MXU
-  instead of the VPU cross-product chain (Möller–Trumbore stays the oracle
+  Baldwin–Weber-style precomputed-transform test: one matrix product
+  instead of a cross-product chain per pair (Möller–Trumbore stays the oracle
   and the unit-level ground truth; both compute identical t,u,v up to fp
   rounding).  For triangle (v0, e1, e2) with N = e1×e2, det = N·N:
       t = (N·v0 - N·o) / (N·d)
@@ -23,7 +23,7 @@ Kernel data layout (rays ride in lanes; primitives in sublanes):
 * ``wsph`` (8, 2·S): two columns per sphere: [-2c·o + (c·c - r²) | c·d]
   (unit d ⇒ a == 1; b = o·d - c·d, cterm = o·o - 2o·c + c·c - r²).
 * ``attrs`` (P, ACOLS), P = T_pad + S_pad: per-primitive shading attributes,
-  fetched in-kernel by one-hot matmul (never a gather).
+  fetched by one-hot matmul (never a gather).
 * ``globals`` (1, NGLOB): camera basis, ambient, per-light pos/color.
 """
 from __future__ import annotations
@@ -70,10 +70,9 @@ LANES = 128     # primitive block width
 class PackedScene:
     """tlb/slb: primitive-block sublane width (multiple of 8, ≤ LANES).
 
-    Small scenes use sub-128 blocks: the MXU matmul cost is unchanged (one
-    pass either way) but the VPU epilogue — the (block, R) t/u/v/hit math
-    that dominates small-scene kernels — shrinks proportionally (a 6-prim
-    scene does (8, R) elementwise work instead of (128, R): 16× less)."""
+    Small scenes use sub-128 blocks: the (block, R) t/u/v/hit math that
+    dominates small scenes shrinks proportionally (a 6-prim scene does
+    (8, R) elementwise work instead of (128, R): 16× less)."""
 
     wtri: Any       # (8, 6 * T_pad) f32, block-major [6, tlb] per block
     wsph: Any       # (8, 2 * S_pad) f32, block-major [2, slb] per block

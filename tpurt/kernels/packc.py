@@ -1,22 +1,23 @@
-"""Differentiable clustered packing for the streaming traversal kernel.
+"""Clustered scene packing for the traversal kernel (tpurt/kernels/traversal.py).
 
 Large scenes (config 4's ~82k tris, config 5's ~1M — BASELINE.json:10-11)
-cannot sit in VMEM; tpurt/accel/clusters.py partitions their triangles into
-contiguous ≤128-tri blocks, and this module packs per-cluster kernel data
-that lives in HBM and is DMA-streamed by tpurt/kernels/traversal.py:
+are partitioned on the host into ≤LEAF-triangle clusters
+(tpurt/accel/clusters.py); this module packs, per cluster and inside jit:
 
-* ``wtri_c``  (C, 8, 6, 128)  Baldwin–Weber forms per cluster (pack.py math)
-* ``attr_c``  (C, TROWS, 128) traversal attributes, transposed so the
-  one-hot fetch is dot_general((TROWS,128),(128,R)) — dense sublane=TROWS,
-  lane=tris blocks, zero padding waste
-* ``aabb``    (8, C_pad) cluster bounds — SMEM-resident, read as scalars by
-  the per-cluster cull
-* plus the resident sphere forms/attrs and globals shared with pack.py.
+* ``forms``  (C, FORMS, LEAF) — the 12 Baldwin–Weber coefficients of every
+  triangle, component-major so a kernel step loads each coefficient of a
+  run of triangles as one contiguous vector;
+* ``gid``    (C, LEAF) int32 — global triangle id of each slot (short
+  clusters repeat their first triangle: harmless under closest/any-hit);
+* ``box``    (C, 8) — cluster bounds [lo xyz, 0, hi xyz, 0], padded by
+  BOX_PAD so conservative tests stay conservative under f32 rounding;
+* ``sph``    (S, 4) — sphere center + radius (tested brute force, outside
+  the kernel; S = 0 rows' worth of work when the scene has no spheres).
 
-AABBs are REFIT from the current vertices inside jit (tri_ids topology is
-frozen at build time): inverse-rendering steps that move vertices keep a
-valid accel structure without a host rebuild — the TPU-native analogue of
-BVH refitting.  Everything except the integer topology is differentiable.
+Bounds are REFIT from the current vertices on every call (the cluster
+topology `tri_ids` is frozen at build time), so optimisation steps that
+move vertices keep a valid acceleration structure without a host rebuild.
+Everything here feeds integer topology only, so it is stop-gradient.
 """
 from __future__ import annotations
 
@@ -26,170 +27,80 @@ import jax
 import jax.numpy as jnp
 
 from tpurt import constants as C
+from tpurt.core import vec
 from tpurt.core.types import pytree_dataclass
-from tpurt.kernels import pack as PK
 
-# traversal attribute rows (TROWS, 128): what continuation + records need
-R_N0 = 0        # shading normals at the 3 corners (== face normal if flat)
-R_N1 = 3
-R_N2 = 6
-R_GID = 9       # global primitive id as f32 (tris: tri id; spheres: T + s)
-R_CENTER = 10   # sphere center (3) — zero for triangles
-R_RADIUS = 13
-R_REFL = 14     # material reflectivity (kernel kills dead reflection paths)
-TROWS = 16
-
-LANES = PK.LANES
+#: coefficient rows of ``forms``: N (3), -N·v0, r1 (3), c1, r2 (3), c2
+FORMS = 12
+#: absolute padding of cluster boxes.  Shadow rays start RAY_OFFSET_EPS off
+#: the surface, and the light-origin cull (traversal.py) tests the
+#: unshifted segment, so boxes grow by more than that offset.
+BOX_PAD = 2.0 * C.RAY_OFFSET_EPS
 
 
-@pytree_dataclass(meta_fields=("n_clusters", "n_sph_blocks", "n_lights", "n_tris"))
+@pytree_dataclass(meta_fields=("n_clusters", "n_spheres", "n_tris"))
 class PackedClusters:
-    wtri_c: Any     # (C, 8, 6, LANES) f32 — HBM, streamed
-    attr_c: Any     # (C, TROWS, LANES) f32 — HBM, streamed
-    aabb: Any       # (8, C_pad) f32 rows [lox loy loz hix hiy hiz 0 0] — SMEM
-    wsph: Any       # (8, 2*S_pad) f32 — resident
-    sattr: Any      # (TROWS, S_pad) f32 — resident
-    globals: Any    # (1, NGLOB) f32
+    forms: Any      # (C, FORMS, LEAF) f32
+    gid: Any        # (C, LEAF) int32
+    box: Any        # (C, 8) f32
+    sph: Any        # (max(S, 1), 4) f32
     n_clusters: int
-    n_sph_blocks: int
-    n_lights: int
+    n_spheres: int  # spheres the traversal tests (0: mesh-only scene)
     n_tris: int     # total triangles (gid >= n_tris ⇒ sphere)
+
+
+def tri_forms(v0, e1, e2):
+    """Baldwin–Weber coefficients of triangles (v0, e1, e2) → (FORMS, T).
+
+    With N = e1×e2, det = N·N: t = -(N·o - N·v0)/(N·d) and the barycentrics
+    u = r1·p + c1, v = r2·p + c2 at p = o + t·d.  Degenerate triangles get
+    N = 0, so |N·d| < MT_DET_EPS masks them, and a nonzero numerator keeps
+    0/0 out."""
+    n = vec.cross(e1, e2)
+    det = vec.dot(n, n)
+    safe = jnp.where(det < 1e-18, 1.0, det)[..., None]
+    r1 = vec.cross(e2, n) / safe
+    r2 = vec.cross(n, e1) / safe
+    nd = jnp.where(det < 1e-18, -1.0, vec.dot(n, v0))
+    c1 = -vec.dot(r1, v0)
+    c2 = -vec.dot(r2, v0)
+    cols = [n[:, 0], n[:, 1], n[:, 2], -nd,
+            r1[:, 0], r1[:, 1], r1[:, 2], c1,
+            r2[:, 0], r2[:, 1], r2[:, 2], c2]
+    return jnp.stack(cols, axis=0)
 
 
 def pack_clusters(scene, tri_ids) -> PackedClusters:
     """Scene + frozen cluster topology (C, LEAF) int32 → PackedClusters."""
+    scene = jax.lax.stop_gradient(scene)
     Ccount, leaf = tri_ids.shape
-    assert leaf == LANES
     flat = tri_ids.reshape(-1)
+    tri = scene.triangles[flat]                   # (C*LEAF, 3)
+    v0 = scene.vertices[tri[:, 0]]
+    v1 = scene.vertices[tri[:, 1]]
+    v2 = scene.vertices[tri[:, 2]]
+    forms = tri_forms(v0, v1 - v0, v2 - v0)       # (FORMS, C*LEAF)
+    forms = forms.reshape(FORMS, Ccount, leaf).transpose(1, 0, 2)
 
-    tri = scene.triangles[flat]                   # (C*128, 3)
-    # ONE merged [pos | normal?] per-vertex table gathered once per corner:
-    # 3 wide gathers instead of 6 narrow ones — pack_clusters runs EVERY
-    # frame (in-jit AABB refit) and measured 54 ms at 1M tris, gather-bound
-    # (the same lesson as the shading tables, design.md item 13).  Column
-    # slices keep every downstream value the same subtraction/order.
-    if scene.smooth:
-        vtab = jnp.concatenate([scene.vertices, scene.vnormals], axis=-1)
+    lo = jnp.minimum(jnp.minimum(v0, v1), v2).reshape(Ccount, leaf, 3)
+    hi = jnp.maximum(jnp.maximum(v0, v1), v2).reshape(Ccount, leaf, 3)
+    lo = lo.min(axis=1) - BOX_PAD
+    hi = hi.max(axis=1) + BOX_PAD
+    zero = jnp.zeros((Ccount, 1), C.DTYPE)
+    box = jnp.concatenate([lo, zero, hi, zero], axis=1)
+
+    n_sph = 0 if scene.n_real_spheres == 0 else scene.n_spheres
+    if n_sph:
+        sph = jnp.concatenate(
+            [scene.sph_center, scene.sph_radius[:, None]], axis=1)
     else:
-        vtab = scene.vertices
-    g0 = vtab[tri[:, 0]]
-    g1 = vtab[tri[:, 1]]
-    g2 = vtab[tri[:, 2]]
-    v0 = g0[:, 0:3]
-    e1, e2 = g1[:, 0:3] - v0, g2[:, 0:3] - v0
-
-    groups = PK.tri_form_groups(v0, e1, e2)       # (8, 6, C*128)
-    # kept 4D (C, 8, 6, LANES): the traversal kernel DMA-gathers several
-    # clusters into an (8, 6, NB, LANES) scratch (one strided copy per
-    # cluster) and matmuls the whole block at once — the form axis must be
-    # separable from the lane axis for that destination striding
-    wtri_c = groups.reshape(8, 6, Ccount, LANES).transpose(2, 0, 1, 3)
-
-    if scene.smooth:
-        n0 = g0[:, 3:6]
-        n1 = g1[:, 3:6]
-        n2 = g2[:, 3:6]
-    else:
-        from tpurt.core import vec
-
-        n0 = n1 = n2 = vec.normalize(jnp.cross(e1, e2))
-    gid = flat.astype(C.DTYPE)
-    zeros = jnp.zeros_like(gid)
-    # reflectivity rides along (stop-gradient: the kernel only uses it to
-    # decide path liveness, a visibility-like discrete effect; the shading
-    # gradient to reflectivity flows through the deferred pass)
-    refl_t = jax.lax.stop_gradient(
-        scene.materials.reflectivity[scene.tri_mat[flat]]
-    )
-    attr_rows = jnp.stack(
-        [
-            n0[:, 0], n0[:, 1], n0[:, 2],
-            n1[:, 0], n1[:, 1], n1[:, 2],
-            n2[:, 0], n2[:, 1], n2[:, 2],
-            gid,
-            zeros, zeros, zeros, zeros,           # center / radius unused
-            refl_t, zeros,
-        ],
-        axis=0,
-    )                                             # (TROWS, C*128)
-    attr_c = (
-        attr_rows.reshape(TROWS, Ccount, LANES).transpose(1, 0, 2)
-    )                                             # (C, TROWS, 128)
-
-    # 8 zero pad clusters: the span-coalesced streaming loop
-    # (traversal.py SPAN) DMAs fixed-size runs of up to 8 clusters from a
-    # dynamic start; a run starting at the last real cluster must not read
-    # past the array.  Pad rows are never PROCESSED (len guards), only
-    # fetched.
-    wtri_c = jnp.pad(wtri_c, ((0, 8), (0, 0), (0, 0), (0, 0)))
-    attr_c = jnp.pad(attr_c, ((0, 8), (0, 0), (0, 0)))
-
-    # refit AABBs from current vertices (stop-gradient: bounds are not a
-    # differentiable quantity, and their motion is a visibility effect)
-    v1 = g1[:, 0:3]
-    v2 = g2[:, 0:3]
-    lo = jnp.minimum(jnp.minimum(v0, v1), v2).reshape(Ccount, LANES, 3)
-    hi = jnp.maximum(jnp.maximum(v0, v1), v2).reshape(Ccount, LANES, 3)
-    lo = jax.lax.stop_gradient(lo.min(axis=1))    # (C, 3)
-    hi = jax.lax.stop_gradient(hi.max(axis=1))
-    C_pad = -(-Ccount // LANES) * LANES
-    aabb = jnp.zeros((8, C_pad), C.DTYPE)
-    # pad clusters get an empty box at +inf so the cull always rejects them
-    aabb = aabb.at[0:3, :].set(3.0e37)
-    aabb = aabb.at[3:6, :].set(-3.0e37)
-    aabb = aabb.at[0:3, :Ccount].set(lo.T)
-    aabb = aabb.at[3:6, :Ccount].set(hi.T)
-
-    # resident spheres (forms shared with pack.py; attrs in traversal layout).
-    # Scenes with zero REAL spheres (mesh-only: configs 4/5) skip the sphere
-    # path entirely — n_sph_blocks = 0 removes one matmul+epilogue from every
-    # traversal pass.
-    if scene.n_real_spheres == 0:
-        return PackedClusters(
-            wtri_c=wtri_c,
-            attr_c=attr_c,
-            aabb=aabb,
-            wsph=jnp.zeros((8, 2 * LANES), C.DTYPE),
-            sattr=jnp.zeros((TROWS, LANES), C.DTYPE),
-            globals=PK.globals_vec(scene),
-            n_clusters=Ccount,
-            n_sph_blocks=0,
-            n_lights=scene.n_lights,
-            n_tris=scene.n_tris,
-        )
-    S = scene.n_spheres
-    S_pad = max(LANES, -(-S // LANES) * LANES)
-    wsph = PK.block_major(
-        PK.sphere_form_groups(scene.sph_center, scene.sph_radius), S_pad
-    )
-    T_total = scene.n_tris
-    sgid = (jnp.arange(S) + T_total).astype(C.DTYPE)
-    zs = jnp.zeros_like(sgid)
-    refl_s = jax.lax.stop_gradient(
-        scene.materials.reflectivity[scene.sph_mat]
-    )
-    sattr = jnp.stack(
-        [
-            zs, zs, zs, zs, zs, zs, zs, zs, zs,
-            sgid,
-            scene.sph_center[:, 0], scene.sph_center[:, 1], scene.sph_center[:, 2],
-            scene.sph_radius,
-            refl_s, zs,
-        ],
-        axis=0,
-    )                                             # (TROWS, S)
-    sattr = jnp.pad(sattr, ((0, 0), (0, S_pad - S)))
-
+        sph = jnp.zeros((1, 4), C.DTYPE)
     return PackedClusters(
-        wtri_c=wtri_c,
-        attr_c=attr_c,
-        aabb=aabb,
-        wsph=wsph,
-        sattr=sattr,
-        globals=PK.globals_vec(scene),
+        forms=forms,
+        gid=tri_ids.astype(jnp.int32),
+        box=box,
+        sph=sph,
         n_clusters=Ccount,
-        n_sph_blocks=S_pad // LANES,
-        n_lights=scene.n_lights,
-        n_tris=T_total,
+        n_spheres=n_sph,
+        n_tris=scene.n_tris,
     )
-

@@ -3,7 +3,7 @@
 This is the framework's ground truth (SURVEY.md §0 "Parity note"): the OpenCL
 reference was unreadable this round, so correctness is defined by THIS module
 — a frozen, naively-differentiable Whitted renderer whose every convention
-comes from tpurt/constants.py.  The Pallas megakernels must `allclose` to it
+comes from tpurt/constants.py.  The fast paths must `allclose` to it
 in both image and pixel-gradients (BASELINE.json:5).  If /root/reference ever
 mounts non-empty, re-align constants.py (not this logic) to the OpenCL code.
 

@@ -34,7 +34,7 @@ def load_obj(path_or_lines):
         # the native output is bit-identical (tested) and falls back here
         # when the toolchain is unavailable.  TPURT_OBJ_NATIVE=0 forces the
         # python spec parser (debug/verification kill-switch, like the
-        # other fast-path knobs: TPURT_MM_PREC, TPURT_PACK_DIRECT, ...).
+        # other fast-path knobs, e.g. TPURT_PACK_DIRECT).
         import os
 
         if os.environ.get("TPURT_OBJ_NATIVE", "1") != "0":

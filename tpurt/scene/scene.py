@@ -2,7 +2,7 @@
 
 The reference packs meshes/materials/lights into flat GPU-friendly structs on
 the C++ host and uploads them via clCreateBuffer (SURVEY.md §1a/§2 row R11,
-[ARCHETYPE] — reference unreadable this round).  The TPU-native equivalent is
+[ARCHETYPE] — reference unreadable this round).  The equivalent here is
 a pytree of device arrays: jit donation/sharding replaces explicit buffer
 management, and every field is a differentiable leaf (vertex positions,
 normals, albedo/specular, light params — the gradient targets named in

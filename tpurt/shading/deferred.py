@@ -1,18 +1,18 @@
 """Deferred shading: differentiable image reconstruction from hit topology.
 
 The scalable-scene architecture (SURVEY.md §7 step 4 + "hard parts"): the
-Pallas traversal megakernel (tpurt/kernels/traversal.py) finds WHERE rays
-hit — integer primitive ids per bounce and shadow-occlusion bitmasks — and
-this pure-jnp pass recomputes every CONTINUOUS quantity (t, barycentrics,
-normals, Phong terms) from those ids, differentiably, at XLA level.
+traversal (tpurt/kernels/traversal.py) finds WHERE rays hit — integer
+primitive ids per bounce and shadow-occlusion bitmasks — and this pure-jnp
+pass recomputes every CONTINUOUS quantity (t, barycentrics, normals, Phong
+terms) from those ids, differentiably, at XLA level.
 
-Why this split is the right TPU design:
+Why the split:
 * gradients: autodiff flows through gathers of (vertices, normals,
   materials, lights, camera) at *fixed* topology — exactly the
   piecewise-constant-visibility convention (BASELINE.json:5), with no
   custom_vjp needed and cost O(pixels × depth), independent of scene size;
 * the non-differentiable, compute-heavy part (traversal, visibility) stays
-  in the kernel where it is MXU-batched and cluster-culled;
+  in the cluster-culled trace kernel;
 * XLA fuses the whole replay into a handful of kernels over (N, ·) arrays.
 
 The record format is backend-agnostic: `records_oracle` produces identical
@@ -34,64 +34,48 @@ from tpurt import constants as C
 from tpurt.core import geom, vec
 from tpurt.core.types import pytree_dataclass
 
-#: backward of the material-table row gather as a one-hot MXU matmul
-#: instead of an N-row scatter-add into M rows (A/B constant, trace time).
-#: History: r2 measured both flags as losses/non-additive on the
-#: pre-compaction pre-bf16x6 graph (config5 fwdbwd 943.9 plain vs 967.3
-#: MAT=1; TEX=1+MAT=0 regressed to 1030.8).  r5 re-measured under the
-#: CURRENT graph (compaction + bf16x6 + vtab segsum): BOTH ON wins,
-#: 174.5 → 170.7 ms c5 bwd-extra — defaults flipped ON (VERDICT r4 item 4
-#: asked for exactly this re-measurement).
+#: backward of the material-table row gather as a one-hot matmul instead
+#: of an N-row scatter-add into M rows (A/B constant, trace time; chosen on
+#: the previous accelerator, not yet measured on the GPU).
 MAT_SEGSUM = os.environ.get("TPURT_MAT_SEGSUM", "1") != "0"
 
 #: backward of the texel quad-table gather as a FACTORED one-hot matmul:
 #: dquad[r, c, k] = Σ_n Y[n,r]·X[n,c]·cot[n,k] with Y/X one-hots over the
-#: (texture-row, texel-column) split — ~12·N·64 f32 of matmul traffic vs a
-#: 2M-update scatter-add.  Default ON since r5 (see MAT_SEGSUM note).
+#: (texture-row, texel-column) split instead of an N-update scatter-add
+#: (see the MAT_SEGSUM note).
 TEX_SEGSUM = os.environ.get("TPURT_TEX_SEGSUM", "1") != "0"
 #: backward of the per-triangle shadepack gather as a SORTED segment-sum:
 #: the hit topology is fixed (stop_gradient ints), so the forward graph
 #: can afford an argsort of the 2M pids; the transpose then permutes the
 #: cotangent rows (a gather) and segment-sums runs of equal pid with
-#: indices_are_sorted=True, instead of scatter-adding 2M random rows into
-#: the (T, 25) table.  The bwd ablation (scripts/ablate_bwd.py, config 5)
-#: put everything touching this scatter at ~1.6 s slabbed vs 0.23 s for
-#: scatter-free leaves — this is THE deferred-bwd lever.  A/B flag.
+#: indices_are_sorted=True, instead of scatter-adding N random rows into
+#: the (T, 25) table.  A/B flag, off.
 SORTED_SCATTER = os.environ.get("TPURT_SORTED_SCATTER", "0") != "0"
 
-#: compacted chunked shading (r3): sort pixels by (miss, pid) with a
+#: compacted chunked shading: sort pixels by (miss, pid) with a
 #: stop-gradient argsort, shade in SHADE_CHUNKS chunks, and lax.cond-skip
-#: chunks past the last hit.  Motivation (scripts/ablate_bwd_real.py,
-#: config 5 @1080p): only 15% of pixels hit, yet shading gathered/scattered
-#: all 2M — the (T, 25) pack scatter alone was 293 ms of the 454 ms
-#: backward.  Compaction shrinks every per-pixel gather AND its backward
-#: scatter to the hit set.  Per-pixel math is identical and the permutation
-#: round-trips through exact custom-vjp gathers, so images agree to
-#: compiler noise (XLA picks different FMA/fusion at chunk shapes; measured
-#: ulp-level ≤3e-5) and gradients differ from the unchunked path only in
-#: scatter accumulation order (allclose).
+#: chunks past the last hit.  On a mostly-miss frame of a big scene this
+#: shrinks every per-pixel gather AND its backward scatter to the hit set.
+#: Per-pixel math is identical and the permutation round-trips through
+#: exact custom-vjp gathers, so images agree to compiler noise (fusion
+#: differs at chunk shapes) and gradients differ from the unchunked path
+#: only in scatter accumulation order (allclose).
 #: "auto" gates compaction to scenes where the scatters it shrinks are the
 #: dominant backward cost — the same 3·T > N regime as the direct vertex
-#: transpose below.  Measured: config 5 (big T, 15% hit) compact wins
-#: 944→664 ms fwdbwd; config 4 (small T, 74% hit) compact LOSES
-#: 169→262 ms (argsort + chunk machinery with nothing to skip).  A RUNTIME
-#: lax.cond on the measured hit fraction was tried and is a recorded
-#: negative result: the two branches' (N, ·) residuals co-allocate and
-#: XLA's remat stops at the cond boundary — config 4 fwdbwd OOM'd the
-#: compiler at 44.7 GB of HBM.  "1"/"0" force on/off.
-#: jax.checkpoint the COMPACTED-shading chunk body: the backward
-#: recomputes the chunk forward instead of loading scan residuals.
-#: MEASURED WIN r5 (the backward was RESIDUAL/FUSION-bound, not
-#: compute-bound): config 5 @1080p fwdbwd 436.2 → 367.6 ms (bwd-extra
-#: 170.7 → 103.1) — the per-iteration residual buffers of the chunk scan
-#: break XLA fusion, and recompute-from-carries fuses clean.  The SAME
-#: trade on the UNcompacted path measured NEGATIVE (config 4 88.7 →
-#: 101.6), so remat applies only inside _shade_compacted.  Gradients
-#: differ only by refusion rounding (allclose; tested).  Default ON.
+#: transpose below; a scene with few triangles and many hits pays the
+#: argsort and chunk machinery for nothing.  A RUNTIME lax.cond on the hit
+#: fraction is a recorded negative (docs/design.md): the two branches'
+#: (N, ·) residuals co-allocate.  "1"/"0" force on/off.
+#: SHADE_REMAT: jax.checkpoint the COMPACTED-shading chunk body, so the
+#: backward recomputes the chunk forward instead of loading scan
+#: residuals, whose per-iteration buffers break fusion.  Applies only
+#: inside _shade_compacted (the uncompacted path is not residual-bound).
+#: Gradients differ only by refusion rounding (allclose; tested).
 #: "names" (the default) additionally SAVES the wide shadepack/texel
 #: gather rows (checkpoint_name 'shade_rows' + save_only_these_names) so
-#: the bwd recomputes the elementwise chains but not the big gathers:
-#: c5 fwdbwd 367.1 → 348.4 ms (bwd-extra 102.8 → 83.8).
+#: the backward recomputes the elementwise chains but not the gathers.
+#: These gates were tuned on the previous accelerator and are not yet
+#: re-measured on the GPU.
 _SHADE_REMAT_ENV = os.environ.get("TPURT_SHADE_REMAT", "names")
 SHADE_REMAT = _SHADE_REMAT_ENV != "0"
 
@@ -103,7 +87,7 @@ def _remat_policy():
 
 
 SHADE_COMPACT = os.environ.get("TPURT_SHADE_COMPACT", "auto")
-SHADE_CHUNKS = int(os.environ.get("TPURT_SHADE_CHUNKS", "32"))  # 32 vs 16: c5 fwd 443.3 vs 447.8 ms
+SHADE_CHUNKS = int(os.environ.get("TPURT_SHADE_CHUNKS", "32"))
 SHADE_COMPACT_MIN = 1 << 17
 
 
@@ -116,15 +100,13 @@ def _shade_compact_on(n_tris: int, n_pix: int) -> bool:
     return 3 * n_tris > n_pix
 
 #: backward of the per-pixel pack-row gather as DIRECT scatters into the
-#: merged per-vertex table (r3): the shadepack is LINEAR in vtab, so the
-#: chain cot_rows → (T, 25) pack scatter → 3 (V, 8) scatters at T updates
-#: can be replaced by 3 (V, 8) scatters at N_pixels updates with
-#: analytically-transposed column mixing — exact up to accumulation order.
-#: Measured motivation (ablate_bwd_real, config 5): the pack scatter
-#: (293 ms) + vertex-table scatters (227 ms) dominate the backward; with
-#: compaction the pixel count is the HIT count, so the direct form wins
-#: whenever 3·n_hit < N + 3·T ~ i.e. for big scenes.  Auto rule below;
-#: override with TPURT_PACK_DIRECT=0/1.
+#: merged per-vertex table: the shadepack is LINEAR in vtab, so the chain
+#: cot_rows → (T, 25) pack scatter → 3 (V, 8) scatters at T updates can be
+#: replaced by 3 (V, 8) scatters at N_pixels updates with analytically-
+#: transposed column mixing — exact up to accumulation order.  With
+#: compaction the pixel count is the HIT count, so the direct form moves
+#: fewer rows whenever 3·n_hit < N + 3·T, i.e. for big scenes.  Auto rule
+#: below; override with TPURT_PACK_DIRECT=0/1.
 _PACK_DIRECT_ENV = os.environ.get("TPURT_PACK_DIRECT", "auto")
 
 
@@ -140,9 +122,8 @@ def _bij_gather(x, idx, idx_t, valid_t):
     PRE-INVERTED gather instead of a scatter-add: dx[j] = cot[idx_t[j]]
     where valid_t[j], else 0.  Exact when idx restricted to valid_t's
     support is a bijection and the cotangent at padding positions is zero
-    (compacted shading crops padding before the loss, so it is).  XLA
-    lowers scatter serially on TPU (~150 ns/update measured); this keeps
-    permutations at gather speed in both directions."""
+    (compacted shading crops padding before the loss, so it is).  This
+    keeps permutations at gather speed in both directions."""
     return x[idx]
 
 
@@ -192,8 +173,8 @@ _gather_rows_sorted.defvjp(_gather_rows_sorted_fwd, _gather_rows_sorted_bwd)
 @jax.custom_vjp
 def _gather_quad_factored(quad3, ridx, cidx):
     """Gather rows of a (R, C, K) table by (row, col) index pair; the
-    transpose runs as K factored one-hot matmuls on the MXU instead of an
-    N-update scatter-add onto R·C rows.  Forward is the plain joint-index
+    transpose runs as K factored one-hot matmuls instead of an N-update
+    scatter-add onto R·C rows.  Forward is the plain joint-index
     gather (bit-identical values); backward products are 0·x/1·x exact at
     f32 HIGHEST, so gradients differ from scatter-add only in accumulation
     order (allclose)."""
@@ -236,8 +217,8 @@ _gather_quad_factored.defvjp(
 @jax.custom_vjp
 def _gather_small(table, idx):
     """Row gather from a SMALL table (M rows ≪ N pixels) whose TRANSPOSE
-    is a one-hot matmul: dL/dtable = onehot(idx)ᵀ @ cot runs on the MXU in
-    one pass instead of an N-update scatter-add serializing on M rows.
+    is a one-hot matmul: dL/dtable = onehot(idx)ᵀ @ cot instead of an
+    N-update scatter-add onto M rows.
     Forward is the plain gather (unchanged cost/values); the backward sum
     is f32 HIGHEST (every product is 0·x or 1·x, exact — only the
     accumulation ORDER differs from scatter-add, so gradients are allclose,
@@ -366,8 +347,7 @@ def _build_shadepack(scene):
     (cols 0:9), corner normals (9:18 when smooth) and corner uvs (next 6
     when textured).  Shading then does ONE wide row gather per pixel per
     depth instead of a triangle-index gather CHAINED into 3 dependent
-    vertex/normal/uv gathers — measured 2× on the gather-bound deferred
-    pass at 2M pixels (BASELINE.md shading sub-split).  A single table
+    vertex/normal/uv gathers.  A single table
     also means the BACKWARD pass emits ONE (T, K) scatter-add per depth
     instead of one per use-site (the HLO showed 4 separate 2M-row scatters
     into (T, 9) before the merge)."""
@@ -382,8 +362,7 @@ def _pack_gather(smooth, textured, pack_sg, vtab, tri, pid):
     (_pack_from_vtab), so d_vtab is 3 (V, W) scatters at N_PIXEL updates
     with analytically-mixed columns, replacing the (T, K) pack scatter at
     N updates PLUS 3 (V, W) scatters at T updates the autodiff chain
-    emits.  Measured (ablate_bwd_real, config 5 @1080p): those two were
-    293 + 227 ms of the 454 ms backward.  `pack_sg` must equal
+    emits.  `pack_sg` must equal
     _pack_from_vtab(stop_gradient(vtab), tri, ...) — callers pass the
     prebuilt pack so the forward stays one wide gather; its cotangent here
     is zero (it feeds a stop_gradient).  Gradients are exact up to scatter
@@ -394,42 +373,6 @@ def _pack_gather(smooth, textured, pack_sg, vtab, tri, pid):
 def _pack_gather_fwd(smooth, textured, pack_sg, vtab, tri, pid):
     return pack_sg[pid], (tri[pid], vtab.shape, pack_sg.shape, tri.shape,
                           pid.shape)
-
-
-#: vertex-table scatter partitioning: the TPU serial scatter's per-update
-#: cost is residency-bound — measured ~12 ns/update into an 8 MB target vs
-#: ~110-145 ns into 16-100 MB ones (design.md item 26 note).  Splitting the
-#: (V, W) target into 2 range slices revisits every update per slice but
-#: each slice stays resident: 3×(V,8) @303k real updates 65.9 → 38.4 ms on
-#: chip (K=4 gives the gain back to the extra visits).  Per-row update
-#: order is unchanged, so gradients are bit-identical.
-_VTAB_PARTS_ENV = os.environ.get("TPURT_VTAB_SCATTER_PARTS", "auto")
-_VTAB_PARTS_MIN_BYTES = 12 << 20
-
-#: r5: route the vertex-table accumulation through the Pallas sorted
-#: segment-sum kernel (tpurt/kernels/segsum.py) instead of the XLA serial
-#: scatter.  In-graph the serial scatter measures ~50-80 ns/update
-#: (ablate_bwd_real r5 tier — ~4× its standalone rate); the kernel's MXU
-#: one-hot accumulation runs ~13 ns/update plus one argsort + permutation
-#: gather (both at gather speed).  "auto" enables it exactly where the
-#: scatter hurts: targets past the residency cliff (same gate as the K=2
-#: range partition it replaces).  Gradients differ from the scatter only
-#: in f32 accumulation order (allclose; tested).
-_VTAB_SEGSUM_ENV = os.environ.get("TPURT_VTAB_SEGSUM", "auto")
-
-
-def _vtab_segsum_on(vtab_shape) -> bool:
-    if _VTAB_SEGSUM_ENV != "auto":
-        return _VTAB_SEGSUM_ENV != "0"
-    rows, cols = vtab_shape
-    return rows * cols * 4 > _VTAB_PARTS_MIN_BYTES
-
-
-def _vtab_scatter_parts(vtab_shape) -> int:
-    if _VTAB_PARTS_ENV != "auto":
-        return max(1, int(_VTAB_PARTS_ENV))
-    rows, cols = vtab_shape
-    return 2 if rows * cols * 4 > _VTAB_PARTS_MIN_BYTES else 1
 
 
 def _pack_gather_bwd(smooth, textured, res, cot):
@@ -454,35 +397,10 @@ def _pack_gather_bwd(smooth, textured, res, cot):
          if len(parts[c]) > 1 else parts[c][0])
         for c in range(3)
     ]
-    if _vtab_segsum_on(vtab_shape):
-        from tpurt.kernels.segsum import segsum_rows
-
-        idx_all = jnp.concatenate([i3[:, 0], i3[:, 1], i3[:, 2]])
-        upd_all = jnp.concatenate(upds, axis=0)
-        dvtab = segsum_rows(idx_all, upd_all, vtab_shape[0])
-        f0 = lambda s: np.zeros(s, dtype=jax.dtypes.float0)  # noqa: E731
-        return (jnp.zeros(pack_shape, cotf.dtype), dvtab, f0(tri_shape),
-                f0(pid_shape))
-    K = _vtab_scatter_parts(vtab_shape)
-    if K == 1:
-        dvtab = jnp.zeros(vtab_shape, cotf.dtype)
-        for c in range(3):
-            dvtab = dvtab.at[i3[:, c]].add(upds[c])
-    else:
-        V = vtab_shape[0]
-        Vk = -(-V // K)
-        slices = []
-        for kk in range(K):
-            lo = kk * Vk
-            dk = jnp.zeros((Vk, vtab_shape[1]), cotf.dtype)
-            for c in range(3):
-                loc = i3[:, c] - lo
-                m = (loc >= 0) & (loc < Vk)
-                # out-of-slice updates add 0.0 at a clipped row — exact
-                dk = dk.at[jnp.clip(loc, 0, Vk - 1)].add(
-                    jnp.where(m[:, None], upds[c], 0.0))
-            slices.append(dk)
-        dvtab = jnp.concatenate(slices)[:V]
+    # one scatter-add of all three corners (accumulation order is the
+    # scatter's own; on the GPU it adds with atomics)
+    dvtab = jnp.zeros(vtab_shape, cotf.dtype).at[i3.T.reshape(-1)].add(
+        jnp.concatenate(upds, axis=0))
     f0 = lambda s: np.zeros(s, dtype=jax.dtypes.float0)  # noqa: E731
     return (jnp.zeros(pack_shape, cotf.dtype), dvtab, f0(tri_shape),
             f0(pid_shape))
@@ -710,10 +628,9 @@ def shade_from_records(
     compact = (gather_fn is None and N >= SHADE_COMPACT_MIN
                and _shade_compact_on(scene.n_tris, N))
     if not compact:
-        # NOTE remat measured NEGATIVE on this uncompacted path (config 4
-        # fwdbwd 88.7 → 101.6 ms): at 74% hit rate the recompute isn't
-        # residual-bound — the win is specific to the chunked scan, whose
-        # per-iteration residual buffers break XLA fusion
+        # no remat on this uncompacted path: with most pixels hitting, the
+        # recompute is not residual-bound — the trade is specific to the
+        # chunked scan, whose per-iteration residual buffers break fusion
         return _shade_bundle(scene, o, d, (recs.prim, recs.is_tri, recs.occ),
                              max_depth, shadows, pack, vtab, matpack,
                              gather_fn)
@@ -735,7 +652,7 @@ def shade_from_records(
 
 def _shade_compacted(scene, o, d, recs, max_depth, shadows, pack, vtab,
                      matpack, miss0, n_hit):
-    # ---- hit-compacted chunked shading (r3) -------------------------------
+    # ---- hit-compacted chunked shading -------------------------------------
     # Sort pixels by (miss, pid): a pixel that misses at depth 0 is dead at
     # every depth (alive never resurrects) and its color is exactly the
     # clipped background — zero gradient.  Hits sort by pid for gather/
@@ -880,7 +797,7 @@ def _shade_bundle(scene, o, d, recs_tup, max_depth, shadows, pack, vtab,
             # alive-masked) — skip its gathers/texture sampling entirely.
             # Every benchmark config ends all paths at depth 0 (no
             # reflective materials), so this saves a full shading layer's
-            # gather cost (~360 ms at 1080p, config 5) per empty depth.
+            # gathers per empty depth.
             # lax.cond is reverse-mode differentiable; the skip branch is
             # the identity, so gradients flow correctly either way.
             accum, thr, alive, o, d = lax.cond(

@@ -2,11 +2,12 @@
 "Checkpoint/resume": the reference is a stateless renderer with none; the
 new framework's inverse-rendering loops need restartable state).
 
-Uses orbax-checkpoint when available, falling back to a self-contained npz
-format: leaves stored as arrays plus a STRUCTURAL JSON spec of the pytree
+The default format is a self-contained npz (any `*.npz` path): leaves
+stored as arrays plus a STRUCTURAL JSON spec of the pytree
 (node kinds + class names + field names).  No pickle anywhere — loading an
 untrusted npz can at worst construct allowlisted dataclass/namedtuple types
-from tpurt/optax with array fields, never execute embedded code.
+from tpurt/optax with array fields, never execute embedded code.  Any
+other path is an orbax-checkpoint directory; orbax is imported only then.
 """
 from __future__ import annotations
 

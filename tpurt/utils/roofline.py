@@ -1,74 +1,102 @@
-"""Roofline sanity analysis (SURVEY.md §5 "Tracing/profiling": per-kernel
-roofline check — bytes moved vs HBM bandwidth, flops vs VPU/MXU peak).
+"""Roofline model of the traversal trace kernel (SURVEY.md §5
+"Tracing/profiling": bytes moved against memory bandwidth, flops against
+the arithmetic peak).
 
-Analytic model of the traversal megakernel's cost per frame from scene/
-config shape; used to judge whether a measured ms/frame is bandwidth-,
-compute-, or overhead-bound, and how far from speed-of-light it sits.
+The analytic cost of one frame's trace passes comes from the scene and
+config shape plus the measured mean survivor count per tile
+(tpurt.kernels.traversal.traversal_stats).  It counts upper-bound work —
+every ray against every triangle of every survivor; the kernel's per-ray
+box skip removes some — so the time that work takes at the peaks is not a
+lower bound on the kernel's time, and its ratio to a measured time (the
+"modelled share") can exceed 100% without any fault in the kernel.
+Peaks live in one table keyed by jax's `device_kind`; a device that is not
+in the table is an error, never a default.
 """
 from __future__ import annotations
 
 import dataclasses
 
-# TPU v5e (per chip) — public figures
-V5E_HBM_GBPS = 819.0
-V5E_MXU_BF16_TFLOPS = 394.0
-V5E_MXU_F32_TFLOPS = 98.0     # f32 via bf16x6 passes
-V5E_VPU_GFLOPS = 3_900.0      # 8x128 lanes × ~4 ALUs × 0.94 GHz
+
+@dataclasses.dataclass(frozen=True)
+class Peaks:
+    mem_bytes_per_s: float     # device memory bandwidth
+    f32_flops_per_s: float     # f32 on the CUDA cores (no tensor cores)
+    source: str
+
+
+_H100_SXM = Peaks(
+    mem_bytes_per_s=3.35e12,
+    f32_flops_per_s=67e12,
+    source="NVIDIA H100 SXM5 data sheet: 3.35 TB/s HBM3, 67 TFLOP/s FP32 "
+           "(dense, at the 700 W power limit; a card set to a lower limit "
+           "runs below these under load)",
+)
+
+#: published peaks by jax.Device.device_kind
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": _H100_SXM,
+    "NVIDIA H100 SXM5 80GB": _H100_SXM,
+}
+
+
+def peaks(device_kind: str) -> Peaks:
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device kind {device_kind!r}; add it to "
+            f"tpurt.utils.roofline.PEAKS with its source") from None
+
+
+#: flops of one ray × triangle test (traversal._tri_t; an FMA counts 2)
+FLOPS_PER_PAIR = 44
+#: flops of one ray × cluster-box test (traversal._box_near_far)
+FLOPS_PER_BOX = 18
 
 
 @dataclasses.dataclass
 class TraversalCost:
     passes: int                # closest + occlusion passes per frame
     tiles: int
-    survivors_per_pass: float  # avg clusters streamed per tile per pass
-    chunks_hit_frac: float     # fraction of NCH sub-chunks computed
+    survivors_per_pass: float  # mean clusters traced per tile per pass
+    bytes: float = 0.0
+    flops: float = 0.0
 
-    dma_bytes: float = 0.0
-    mxu_flops: float = 0.0
-    vpu_flops: float = 0.0
-
-    def lower_bound_ms(self) -> dict:
-        dma_ms = self.dma_bytes / (V5E_HBM_GBPS * 1e9) * 1e3
-        mxu_ms = self.mxu_flops / (V5E_MXU_F32_TFLOPS * 1e12) * 1e3
-        vpu_ms = self.vpu_flops / (V5E_VPU_GFLOPS * 1e9) * 1e3
-        return {
-            "dma_ms": dma_ms,
-            "mxu_ms": mxu_ms,
-            "vpu_ms": vpu_ms,
-            "bound_ms": max(dma_ms, mxu_ms, vpu_ms),
-        }
+    def at_peak_s(self, device_kind: str) -> dict:
+        """Seconds the counted bytes and flops take at the device's peaks."""
+        pk = peaks(device_kind)
+        mem_s = self.bytes / pk.mem_bytes_per_s
+        f32_s = self.flops / pk.f32_flops_per_s
+        return {"mem_s": mem_s, "f32_s": f32_s,
+                "bound_s": max(mem_s, f32_s),
+                "bound": "memory" if mem_s >= f32_s else "f32"}
 
 
 def traversal_cost(height, width, max_depth, shadows, n_lights,
-                   survivors_per_pass, chunks_hit_frac=0.5,
-                   rays_per_tile=1024, leaf=128, nch=4) -> TraversalCost:
-    """Estimate per-frame cost of the streaming traversal kernel."""
+                   survivors_per_pass, rays_per_tile=64, leaf=128,
+                   forms=12) -> TraversalCost:
+    """Upper-bound work of one frame's trace passes: every survivor's
+    cluster data is read once per tile and every ray meets every triangle
+    of every survivor (the kernel's box skip only removes work)."""
     tiles = -(-height * width // rays_per_tile)
     passes = (max_depth + 1) * (1 + (n_lights if shadows else 0))
-    cluster_bytes = (8 * 6 * leaf + 16 * leaf) * 4       # forms + attrs
-    dma = tiles * passes * survivors_per_pass * cluster_bytes
-    # MXU: form matmul (8×6·leaf per chunk-ray) + attr one-hot
-    chunk_rays = rays_per_tile // nch
-    per_chunk_mxu = 2 * 8 * 6 * leaf * chunk_rays + 2 * leaf * 16 * chunk_rays
-    mxu = tiles * passes * survivors_per_pass * (nch * chunks_hit_frac) * per_chunk_mxu
-    # VPU: ~16 elementwise ops on (leaf, chunk_rays) per computed chunk
-    per_chunk_vpu = 16 * leaf * chunk_rays
-    vpu = tiles * passes * survivors_per_pass * (nch * chunks_hit_frac) * per_chunk_vpu
-    return TraversalCost(
-        passes=passes, tiles=tiles, survivors_per_pass=survivors_per_pass,
-        chunks_hit_frac=chunks_hit_frac, dma_bytes=dma, mxu_flops=mxu,
-        vpu_flops=vpu,
-    )
+    visits = tiles * passes * survivors_per_pass
+    cluster_bytes = (forms * leaf + leaf + 8) * 4       # forms + gid + box
+    flops = visits * rays_per_tile * (leaf * FLOPS_PER_PAIR + FLOPS_PER_BOX)
+    return TraversalCost(passes=passes, tiles=tiles,
+                         survivors_per_pass=survivors_per_pass,
+                         bytes=visits * cluster_bytes, flops=flops)
 
 
-def report(measured_ms, **kw) -> str:
+def report(measured_ms, device_kind, **kw) -> str:
     cost = traversal_cost(**kw)
-    lb = cost.lower_bound_ms()
-    eff = lb["bound_ms"] / measured_ms if measured_ms > 0 else 0.0
+    lb = cost.at_peak_s(device_kind)
+    share = lb["bound_s"] * 1e3 / measured_ms if measured_ms > 0 else 0.0
     return (
         f"passes={cost.passes} tiles={cost.tiles} "
-        f"dma={cost.dma_bytes/1e9:.2f}GB "
-        f"lower-bound dma={lb['dma_ms']:.1f}ms mxu={lb['mxu_ms']:.1f}ms "
-        f"vpu={lb['vpu_ms']:.1f}ms | measured={measured_ms:.1f}ms "
-        f"(roofline efficiency ≈ {100*eff:.0f}%)"
+        f"bytes={cost.bytes / 1e9:.2f}GB flops={cost.flops / 1e9:.1f}G "
+        f"at peak: mem={lb['mem_s'] * 1e3:.3f}ms "
+        f"f32={lb['f32_s'] * 1e3:.3f}ms ({lb['bound']}-bound) | "
+        f"measured={measured_ms:.3f}ms (modelled share {100 * share:.1f}%, "
+        f"upper-bound work)"
     )
